@@ -11,8 +11,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-from icspcodec_tpu.codec import decode, encode
-from icspcodec_tpu.config import CodecConfig
+from icspcodec.codec import decode, encode
+from icspcodec.config import CodecConfig
 
 
 def _synth(nf, h, w, seed=7):

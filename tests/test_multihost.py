@@ -3,7 +3,7 @@
 results as a single-process encode.
 
 The reference's only parallelism is a single-process pthread pool; this
-pins the TPU framework's cross-host story (SURVEY.md section 2.3) without
+pins the cross-host story (SURVEY.md section 2.3) without
 multi-host hardware: 2 coordinated processes x 2 virtual CPU devices.
 """
 import pathlib
@@ -47,8 +47,8 @@ def test_two_process_gop_sharding_matches_single(tmp_path):
         assert np.array_equal(dumps[0][k], dumps[1][k]), k
 
     # single-process reference on identical data
-    from icspcodec_tpu.constants import COS_ENC
-    from icspcodec_tpu.engine.inter import encode_gop
+    from icspcodec.constants import COS_ENC
+    from icspcodec.engine.inter import encode_gop
 
     g, p, h, w = 4, 2, 64, 64
     rng = np.random.default_rng(0)

@@ -4,15 +4,11 @@ These tests pin the oracle (the specification every JAX engine is tested
 against) to the reference binaries' actual outputs: bitstream bytes,
 encoder reconstruction, and decoder output.
 """
-import sys
-
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
-
-from icspcodec_tpu import oracle
-from icspcodec_tpu.io import load_yuv420, frames_to_planes
+from icspcodec import oracle
+from icspcodec.io import load_yuv420, frames_to_planes
 from tools.make_content import synth_sequence
 
 NF = 32

@@ -9,10 +9,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from icspcodec_tpu.engine.inter import encode_gop
-from icspcodec_tpu.constants import COS_ENC
-from icspcodec_tpu.io import load_yuv420
-from icspcodec_tpu.parallel import encode_gops_sharded, gop_mesh
+from icspcodec.engine.inter import encode_gop
+from icspcodec.constants import COS_ENC
+from icspcodec.io import load_yuv420
+from icspcodec.parallel import encode_gops_sharded, gop_mesh
 from tools.make_content import synth_sequence
 
 W, H = 352, 288
@@ -59,8 +59,8 @@ def test_encode_production_sharded_bitstream(shards, period, precision):
     including a non-dividing GOP count (padding path) and both precisions."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from icspcodec_tpu.codec import encode
-    from icspcodec_tpu.config import CodecConfig
+    from icspcodec.codec import encode
+    from icspcodec.config import CodecConfig
 
     nf = 25 if period else 7  # 2 full GOPs + a 5-frame tail / 7 intra frames
     y, cb, cr = _seq(nf)
@@ -78,8 +78,8 @@ def test_decode_production_sharded(period):
     """decode() with gop_shards>1 reproduces the single-device planes."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from icspcodec_tpu.codec import decode, encode
-    from icspcodec_tpu.config import CodecConfig
+    from icspcodec.codec import decode, encode
+    from icspcodec.config import CodecConfig
 
     nf = 25 if period else 7
     y, cb, cr = _seq(nf)

@@ -11,10 +11,13 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from icspcodec_tpu.engine.intra import to_blocks
-from icspcodec_tpu.engine.wavefront import intra_luma_scan
-from icspcodec_tpu.io import load_yuv420
-from icspcodec_tpu.parallel.tiles import encode_intra_luma_tiled
+from icspcodec.constants import SPIRAL_UNION
+from icspcodec.engine.inter import encode_inter_frame, mv_reconstruct_scan
+from icspcodec.engine.intra import encode_intra_frames, from_blocks, to_blocks
+from icspcodec.engine.wavefront import intra_luma_scan
+from icspcodec.io import load_yuv420
+from icspcodec.ops.me import N_CANON
+from icspcodec.parallel.tiles import encode_inter_frames_tiled, encode_intra_luma_tiled
 from tools.make_content import synth_sequence
 
 W, H = 352, 288
@@ -41,87 +44,42 @@ def test_tiled_intra_equals_single(ntiles, dtype):
     assert np.array_equal(tiled["y_scan"], np.asarray(single["scan"])), "scan"
     assert np.array_equal(tiled["mpm"], np.asarray(single["mpm"])), "mpm"
     assert np.array_equal(tiled["mode_bit"], np.asarray(single["mode_bit"])), "bit"
-    from icspcodec_tpu.engine.intra import from_blocks
-
     rec_single = np.asarray(from_blocks(single["recon"]).astype(jnp.uint8))
     assert np.array_equal(tiled["recon_y"], rec_single), "recon"
 
 
-@pytest.mark.parametrize("ntiles", [2, 11])  # must divide the 22 MB columns
-def test_tiled_inter_equals_single(ntiles):
+# single-device engine steps, jitted once per worker so that the two
+# inter tests share their compiles (both encode one CIF P-frame)
+_intra_single = jax.jit(
+    lambda a, b, c: encode_intra_frames(a, b, c, 16, 16, dtype=jnp.float32))
+_inter_single = jax.jit(
+    lambda *a: encode_inter_frame(*a, 16, 16, dtype=jnp.float32))
+
+
+def _inter_tiled_and_single(seq: str, ntiles: int):
+    """Frame 1 of `seq` encoded as a P-frame over an `ntiles` tile mesh and
+    on one device, both predicting from the single-device intra recon of
+    frame 0."""
     if len(jax.devices()) < ntiles:
         pytest.skip("not enough devices")
     nf = 2
-    raw = synth_sequence("synthB", nf).tobytes()
-    y, cb, cr = load_yuv420(raw, W, H, nf)
-    # previous recon = intra-encode frame 0 (single-device engine)
-    from icspcodec_tpu.engine.intra import encode_intra_frames
-    from icspcodec_tpu.engine.inter import encode_inter_frame
-    from icspcodec_tpu.parallel.tiles import encode_inter_frames_tiled
-
-    intra = jax.jit(
-        lambda a, b, c: encode_intra_frames(a, b, c, 16, 16, dtype=jnp.float32)
-    )(jnp.asarray(y[:1]), jnp.asarray(cb[:1]), jnp.asarray(cr[:1]))
-    prev = dict(
-        y=np.asarray(intra["recon_y"]),
-        cb=np.asarray(intra["recon_cb"]),
-        cr=np.asarray(intra["recon_cr"]),
-    )
+    y, cb, cr = load_yuv420(synth_sequence(seq, nf).tobytes(), W, H, nf)
+    intra = _intra_single(jnp.asarray(y[:1]), jnp.asarray(cb[:1]), jnp.asarray(cr[:1]))
+    prev = {k: np.asarray(intra[f"recon_{k}"]) for k in ("y", "cb", "cr")}
     cur = dict(y=y[1:], cb=cb[1:], cr=cr[1:])
 
     mesh = Mesh(np.asarray(jax.devices()[:ntiles]), axis_names=("tile",))
     tiled = encode_inter_frames_tiled(cur, prev, 16, 16, mesh)
+    single = _inter_single(*(jnp.asarray(d[k]) for d in (cur, prev)
+                             for k in ("y", "cb", "cr")))
+    return tiled, single
 
-    single = jax.jit(
-        lambda *a: encode_inter_frame(*a, 16, 16, dtype=jnp.float32)
-    )(
-        jnp.asarray(cur["y"]), jnp.asarray(cur["cb"]), jnp.asarray(cur["cr"]),
-        jnp.asarray(prev["y"]), jnp.asarray(prev["cb"]), jnp.asarray(prev["cr"]),
-    )
+
+@pytest.mark.parametrize("ntiles", [2, 11])  # must divide the 22 MB columns
+def test_tiled_inter_equals_single(ntiles):
+    tiled, single = _inter_tiled_and_single("synthB", ntiles)
     for k in single:
         assert np.array_equal(np.asarray(tiled[k]), np.asarray(single[k])), k
-
-
-# ---------------------------------------------------------------------------
-# production tile_shards path: codec.encode()/decode() must be byte-identical
-# to the single-device path across shard counts, periods and precisions
-# (VERDICT r2 weak #1/#2: the round-2 tiled production surface shipped
-# untested and the tiled inter decode crashed on a replicated scan carry)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("shards,period,precision", [
-    # full matrix at 2 shards; the max split (11) covers both periods in
-    # fast precision (the f64 CPU-mesh cases are covered at 2 shards —
-    # the seam machinery is shard-count-invariant, runtime is not)
-    (2, 10, "fast"), (2, 10, "exact"), (2, 0, "fast"), (2, 0, "exact"),
-    (11, 10, "fast"), (11, 0, "fast"),
-])
-def test_tile_shards_production_encode_decode(shards, period, precision):
-    """Full production matrix: encode bitstream + recon and decode planes
-    at tile_shards ∈ {2, 11} == single-device, periods {0, 10}, both
-    precisions (reference semantics: allintraPrediction enc src:446-555,
-    decoder src:2083-2272)."""
-    if len(jax.devices()) < shards:
-        pytest.skip("not enough devices")
-    from icspcodec_tpu.codec import decode, encode
-    from icspcodec_tpu.config import CodecConfig
-
-    nf = 12 if period else 3  # one full GOP + 2-frame tail / 3 intra frames
-    raw = synth_sequence("synthB", nf).tobytes()
-    y, cb, cr = load_yuv420(raw, W, H, nf)
-    base = dict(width=W, height=H, qp_dc=16, qp_ac=16,
-                intra_period=period, precision=precision)
-    bits1, rec1 = encode(y, cb, cr, CodecConfig(**base))
-    bitsN, recN = encode(y, cb, cr, CodecConfig(**base, tile_shards=shards))
-    assert bitsN == bits1, "tiled bitstream differs"
-    for k in rec1:
-        assert np.array_equal(recN[k], rec1[k]), f"tiled recon {k}"
-
-    out1 = decode(bits1, nf, precision=precision)
-    outN = decode(bits1, nf, precision=precision, tile_shards=shards)
-    for k in out1:
-        assert np.array_equal(outN[k], out1[k]), f"tiled decode {k}"
 
 
 @pytest.mark.parametrize("ntiles", [2, 11])
@@ -131,41 +89,12 @@ def test_tiled_inter_stateful_me_across_seams(ntiles):
     MB raster).  synthStatic's saturated regions fire zero-SAD breaks in
     many MBs, so the all-gathered table composition must reproduce the
     single-device stateful search exactly."""
-    if len(jax.devices()) < ntiles:
-        pytest.skip("not enough devices")
-    nf = 2
-    raw = synth_sequence("synthStatic", nf).tobytes()
-    y, cb, cr = load_yuv420(raw, W, H, nf)
-    from icspcodec_tpu.engine.intra import encode_intra_frames
-    from icspcodec_tpu.engine.inter import encode_inter_frame
-    from icspcodec_tpu.parallel.tiles import encode_inter_frames_tiled
-
-    intra = jax.jit(
-        lambda a, b, c: encode_intra_frames(a, b, c, 16, 16, dtype=jnp.float32)
-    )(jnp.asarray(y[:1]), jnp.asarray(cb[:1]), jnp.asarray(cr[:1]))
-    prev = dict(
-        y=np.asarray(intra["recon_y"]),
-        cb=np.asarray(intra["recon_cb"]),
-        cr=np.asarray(intra["recon_cr"]),
-    )
-    cur = dict(y=y[1:], cb=cb[1:], cr=cr[1:])
-
-    mesh = Mesh(np.asarray(jax.devices()[:ntiles]), axis_names=("tile",))
-    tiled = encode_inter_frames_tiled(cur, prev, 16, 16, mesh)
-
-    single = jax.jit(
-        lambda *a: encode_inter_frame(*a, 16, 16, dtype=jnp.float32)
-    )(
-        jnp.asarray(cur["y"]), jnp.asarray(cur["cb"]), jnp.asarray(cur["cr"]),
-        jnp.asarray(prev["y"]), jnp.asarray(prev["cb"]), jnp.asarray(prev["cr"]),
-    )
+    tiled, single = _inter_tiled_and_single("synthStatic", ntiles)
     # the static content must actually exercise the break path: some MV
     # must be a non-canonical (mirror-walk) offset
-    from icspcodec_tpu.ops.me import N_CANON
-    from icspcodec_tpu.ops.pallas_me import best_from_mv_union
-    from icspcodec_tpu.engine.inter import mv_reconstruct_scan
     mv = mv_reconstruct_scan(jnp.asarray(np.asarray(single["mv_diff"]), jnp.int32))
-    assert (np.asarray(best_from_mv_union(mv)) >= N_CANON).any(), \
+    canon = {tuple(-o) for o in np.asarray(SPIRAL_UNION[:N_CANON])}
+    assert any(tuple(m) not in canon for m in np.asarray(mv).reshape(-1, 2)), \
         "trigger content failed to produce a mirror-walk MV"
     for k in single:
         assert np.array_equal(np.asarray(tiled[k]), np.asarray(single[k])), k

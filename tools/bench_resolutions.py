@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Device throughput across resolutions (the reference is hardcoded to
-CIF 352x288; this framework is shape-generic — generality pinned by
-tests/test_generality.py).  Carry-serialized methodology as everywhere.
+"""Device throughput across resolutions on one GPU (the reference is
+hardcoded to CIF 352x288; this framework is shape-generic — generality
+pinned by tests/test_generality.py).  Same carry-serialized method as
+bench.py.  Exits non-zero where JAX finds no GPU.
 
-Run ALONE on the chip.  Results recorded in PERF.md.
+    python tools/bench_resolutions.py
 """
 import functools
+import pathlib
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-import numpy as np
+import numpy as np  # noqa: E402
+
+from chip_smoke import card_info, require_gpu  # noqa: E402
 
 
 def synth(w, h, nf, seed=0):
@@ -29,17 +33,17 @@ def synth(w, h, nf, seed=0):
 
 
 def main():
+    require_gpu()
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
 
-    from icspcodec_tpu.constants import COS_ENC
-    from icspcodec_tpu.engine.inter import encode_gop
-    from icspcodec_tpu.engine.intra import encode_intra_frames
+    from icspcodec.compile_cache import enable_compile_cache
+    from icspcodec.constants import COS_ENC
+    from icspcodec.engine.inter import encode_gop
+    from icspcodec.engine.intra import encode_intra_frames
 
-    me = "xla" if jax.default_backend() == "cpu" else "pallas"
+    enable_compile_cache()
+    print(f"card: {card_info()}", flush=True)
 
     def per_call(body, k=7):
         @functools.partial(jax.jit, static_argnames="k")
@@ -68,7 +72,7 @@ def main():
 
         def intra_body(d):
             out = encode_intra_frames(yj + d, cbj, crj, 16, 16,
-                                      table=COS_ENC, dtype=jnp.float32, me=me)
+                                      table=COS_ENC, dtype=jnp.float32)
             return sum(jnp.sum(v.astype(jnp.int32)) for v in out.values())
 
         t_i = per_call(intra_body)
@@ -80,7 +84,7 @@ def main():
 
         def gop_body(d):
             intra, inter = encode_gop(yg + d, cbg, crg, 16, 16,
-                                      table=COS_ENC, dtype=jnp.float32, me=me)
+                                      table=COS_ENC, dtype=jnp.float32)
             return (sum(jnp.sum(v.astype(jnp.int32)) for v in intra.values())
                     + sum(jnp.sum(v.astype(jnp.int32)) for v in inter.values()))
 

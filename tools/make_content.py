@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Deterministic synthetic CIF YUV420 test content.
+"""Deterministic synthetic YUV420 test content (CIF unless asked otherwise).
 
 The reference codec's data/ sequences (akiyo, foreman, ...) are not shipped
 (/root/reference/.MISSING_LARGE_BLOBS), so tests and goldens use synthetic
@@ -17,8 +17,9 @@ W, H = 352, 288
 CW, CH = W // 2, H // 2
 
 
-def synth_sequence(name: str, nframes: int) -> np.ndarray:
-    """Return packed planar YUV420 bytes for `nframes` CIF frames.
+def synth_sequence(name: str, nframes: int, width: int = W, height: int = H) -> np.ndarray:
+    """Return packed planar YUV420 bytes for `nframes` frames, CIF unless
+    `width`/`height` say otherwise (multiples of 16, at least CIF).
 
     Output shape: (nframes * (W*H + 2*CW*CH),) uint8, frame-interleaved
     Y,Cb,Cr exactly as the reference's YCbCrLoad expects
@@ -33,7 +34,9 @@ def synth_sequence(name: str, nframes: int) -> np.ndarray:
     """
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     if name.startswith("synthStatic"):
-        return _static_sequence(rng, nframes)
+        return _static_sequence(rng, nframes, width, height)
+    W, H = width, height
+    CW, CH = W // 2, H // 2
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     cyy, cxx = np.mgrid[0:CH, 0:CW].astype(np.float32)
 
@@ -85,11 +88,12 @@ def synth_sequence(name: str, nframes: int) -> np.ndarray:
     return np.frombuffer(b"".join(out), dtype=np.uint8)
 
 
-def _static_sequence(rng, nframes: int) -> np.ndarray:
+def _static_sequence(rng, nframes: int, W: int, H: int) -> np.ndarray:
     """Static textured background + saturated black/white rectangles + one
     small moving disc.  No pan, no per-frame noise: everything except the
     disc is identical across frames, so once the saturated regions
     reconstruct exactly, every later P-frame sees dozens of zero-SAD MBs."""
+    CW, CH = W // 2, H // 2
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     cyy, cxx = np.mgrid[0:CH, 0:CW].astype(np.float32)
     base = (

@@ -28,12 +28,12 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from icspcodec_tpu.parallel.distributed import (
+from icspcodec.parallel.distributed import (
     global_gop_mesh,
     host_local_gop_batch,
     initialize,
 )
-from icspcodec_tpu.parallel.gop import encode_gops_sharded
+from icspcodec.parallel.gop import encode_gops_sharded
 
 initialize(f"localhost:{port}", nproc, pid)
 assert jax.process_count() == nproc
